@@ -8,8 +8,8 @@
 //   * 1024-state Viterbi candidate generator (spec: /root/reference/cpp/Viterbi.cpp)
 //
 // This is a from-scratch implementation with a flat C ABI for ctypes; it is
-// the CPU/parity backend of the TPU-native framework, and the oracle that the
-// Pallas/JAX kernels are validated against.  All quirks of the reference are
+// the CPU/parity backend of the framework, and the oracle that the JAX
+// device programs are validated against.  All quirks of the reference are
 // deliberately preserved (reversed log_stdv index in the forward emission,
 // backward-pass prev-column emission asymmetry, strict-> tie-breaking in move
 // order, the calloc-zero local-restart floor, in-block out-of-band backtrace

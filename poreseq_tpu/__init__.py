@@ -1,10 +1,10 @@
-"""poreseq_tpu — TPU-native nanopore signal-consensus engine.
+"""poreseq_tpu — JAX nanopore signal-consensus engine.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the reference
+A from-scratch JAX/XLA framework with the capabilities of the reference
 PoreSeq pipeline (see SURVEY.md): event-level pair-HMM alignment, iterative
 propose-score-accept consensus error correction, likelihood-based variant
 scoring, 1024-state Viterbi candidate generation, and region-sharded
-multi-chip scaling — plus a bit-faithful CPU "exact" backend used as the
+multi-device scaling — plus a bit-faithful CPU "exact" backend used as the
 correctness oracle.
 """
 

@@ -3,7 +3,7 @@
 API-compatible with the reference's PSAlign
 (/root/reference/poreseq/_poreseqcpp.pyx:189-472), with a pluggable compute
 backend: ``backend='exact'`` (CPU, f64 bit-faithful oracle) or
-``backend='tpu'`` (JAX/Pallas batched engine).
+``backend='tpu'`` (JAX/XLA batched device engine).
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 
 Mirrors /root/reference/poreseq/cmdline.py: subcommands consensus, variant,
 train, split, merge, extract with identical flags and output formats, plus a
---backend flag selecting the compute engine (exact CPU oracle vs TPU).
+--backend flag selecting the compute engine (exact CPU oracle vs the JAX
+device engine, named `tpu`).
 """
 
 from __future__ import annotations
@@ -174,13 +175,11 @@ def consensus(args):
         # profiler trace of the whole run (the reference has no tracing at
         # all, SURVEY.md section 5.1); works for both backends — exact runs
         # appear as host activity only
-        import jax
+        from .profiling import trace
 
-        jax.profiler.start_trace(args.profile)
-        try:
+        with trace(args.profile) as tr:
             _consensus(args)
-        finally:
-            jax.profiler.stop_trace()
+        sys.stderr.write("profile trace: {}\n".format(tr.path))
         return
     _consensus(args)
 
@@ -388,7 +387,7 @@ def train(args):
     """Hill-climb on consensus accuracy (cmdline.py:246-267).
 
     exact backend: a process pool over candidates, like the reference.
-    tpu backend: one chip can't be shared by a fork pool — the 16 candidates
+    tpu backend: one device can't be shared by a fork pool — the 16 candidates
     run as ONE lockstep batch instead (pipeline.train_candidates), every
     propose/score round batched across candidates."""
     from .parallel.distributed import allgather_round_robin, init_multihost

@@ -4,7 +4,7 @@ Re-implements the observable semantics of the reference's Python-side
 PSEvent/PSModel (/root/reference/poreseq/EventData.py) and the C++ EventData
 helpers updaterefs/getrefstate/getrefstates (/root/reference/cpp/EventData.h:
 110-204), as numpy-first dataclasses that convert cleanly into padded JAX
-pytrees for the TPU engine.
+pytrees for the device engine.
 
 ref_align conventions (EventData.h:92-99):
    0  -> before first / after last aligned position
@@ -79,7 +79,7 @@ class Event:
     flipped: bool = False
     #: optional (lo, hi) level-range hint: only levels [lo, hi) can fall in
     #: any band of this event's region (computed at load from the BAM seed
-    #: alignment + realign width + slack) — the TPU pack slices event arrays
+    #: alignment + realign width + slack) — the device pack slices event arrays
     #: to it, cutting the batch time axis for reads overhanging short
     #: regions; unreachable levels are exact-equivalent (they stay unaligned)
     trim: tuple | None = None

@@ -2,7 +2,7 @@
 
 Re-implements the observable behavior of the reference's Sequence struct
 (/root/reference/cpp/Sequence.h:21-101) and the model flip bit-trick
-(/root/reference/poreseq/EventData.py:204-207), designed TPU-first: sequences
+(/root/reference/poreseq/EventData.py:204-207), built device-first: sequences
 are numpy uint8 code arrays convertible to JAX, states are int32 vectors.
 
 Conventions (match reference):

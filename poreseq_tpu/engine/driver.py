@@ -9,7 +9,7 @@ These drivers implement the reference's control flow —
   engine.score_mutations(data, muts)        -> list[MutationScore]
   engine.map_alignments(data, newseq)       -> (accuracy, filled pairs[n,2])
 
-so the same logic drives both the exact/CPU backend and the TPU backend.
+so the same logic drives both the exact/CPU backend and the device backend.
 """
 
 from __future__ import annotations

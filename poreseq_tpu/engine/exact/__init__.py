@@ -1,7 +1,7 @@
 """Exact (CPU, f64 bit-faithful) engine backend.
 
 This backend reproduces the reference PoreSeq numerics exactly and doubles as
-the oracle the TPU backend is validated against.
+the oracle the device backend is validated against.
 """
 
 from __future__ import annotations

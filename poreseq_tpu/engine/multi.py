@@ -1,7 +1,7 @@
 """Lockstep multi-region drivers: R regions' propose-score-accept rounds run
 in step so every device dispatch batches all regions' events.
 
-This is the TPU-native answer to the reference's region-level parallelism
+This is the device-engine answer to the reference's region-level parallelism
 (files split across a cluster, /root/reference/poreseq/split_fasta.py,
 README.md:48-62): instead of one process per region, one device program per
 *round* serves R regions at once.  The per-region results are EXACTLY those

@@ -6,7 +6,8 @@ mutation against the mutated states at scoring width, then join the refilled
 column with the precomputed *backward* matrix (columnMax, Alignment.h:181-214)
 and difference against the pre-mutation join.
 
-TPU-first design (general gathers are ~25x slower than vector ops here):
+Design (cross-column data movement is selects over static rolls, no
+general gathers inside the scan):
   * mutations are grouped by start position (Refine has exactly <=9 point
     mutations per base, FindMutations.cpp:191-234): every group shares the
     copied column, the refill band geometry, the per-column data windows and
@@ -29,7 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ...core.sequence import apply_mutation, seq_to_states
-from ..types import AlignData, make_mutscores
+from ..types import make_mutscores
 from .align import FUSED
 from .dp import (DMAX, emission, column_solve, neg_big, shift_select,
                  shift_select2)
@@ -82,61 +83,12 @@ def _join_shift(FM, FS, fa, fbest, BM, BS, ba, bbest, n0, smin, smax, dtype):
 _KERNELS = {}
 
 
-def _pallas_mode(dtype, mesh, G):
-    """Fused Pallas group scorer gating.  Default ('auto'): serve a call with
-    the fused kernel only when its group count G is large enough to amortize
-    the kernel's O(C1*E*W) XLA prologue (windows, per-column joins, model
-    values) — the big Refine-scale calls, where the fused kernel beats the
-    XLA group kernel (1.95 s vs 2.30 s per 8-region 64k-mutation call, 0
-    accept-sign flips); small late-Refine / deferred-conflict calls pay ~1 s
-    of prologue where the XLA kernel pays ~0.2 s, so they stay on the XLA
-    kernel.  PSQ_PALLAS_MUTSCORE: '0' = never, '1' = force for every
-    supported shape, 'interp' = interpreter mode (CPU tests);
-    PSQ_PALLAS_G_MIN overrides the auto threshold (default 2048 groups,
-    measured break-even on the bench chip)."""
-    env = os.environ.get("PSQ_PALLAS_MUTSCORE", "")
-    if env == "0" or mesh is not None:
-        return None
-    # the fused kernel computes in f32 only; f64 (the parity/oracle path)
-    # must never silently degrade to f32 scores
-    if dtype is not jnp.float32:
-        return None
-    if env == "interp":
-        return "interp"
-    if env == "1":
-        return "force"
-    # auto mode (fused for big-G calls) is opt-in via PSQ_PALLAS_G_MIN:
-    # round 5's interleaved A/B measured the shared-window XLA kernel FASTER
-    # than the fused kernel at Refine scale (59.9 s vs 65.4 s median per
-    # batch-8 run — PERF.md round 5), so the XLA group kernel is the
-    # default; the remaining fused-prologue overhead (mv6 model-value
-    # gather, colmeta joins) is the flip's outstanding cost
-    g_min = os.environ.get("PSQ_PALLAS_G_MIN", "")
-    if g_min and jax.default_backend() == "tpu" and G >= int(g_min):
-        return "auto"
-    return None
-
-
-def _estimate_groups(muts_list, participate):
-    """Group count the call will produce (_build_groups semantics: one group
-    per <=9 mutations sharing a start, per region) — cheap, computed before
-    the batch layout so the fused-kernel decision can gate on it."""
-    G = 0
-    for r, muts in enumerate(muts_list):
-        if not participate[r] or not muts:
-            continue
-        starts = np.fromiter((m.start for m in muts), np.int64, len(muts))
-        _, counts = np.unique(starts, return_counts=True)
-        G += int(np.sum((counts + 8) // 9))
-    return G
-
-
 def _resolve_gb(Ws: int, K: int) -> int:
-    """Groups per scan step: PSQ_GB override, else shape-based default (wide
-    Mutate shapes spill VMEM at GB=32).  Resolved once here so the kernel
-    cache key always matches the blocking the body actually compiled with."""
-    gb_env = os.environ.get("PSQ_GB", "")
-    return int(gb_env) if gb_env else (32 if Ws * K <= 512 else 8)
+    """Groups per scan step: 32 for the narrow Refine shapes, 8 for the wide
+    Mutate shapes, whose per-group tensors (P x E_g x Ws per refill step) are
+    ~4x larger.  Resolved once here so the kernel cache key always matches
+    the blocking the body actually compiled with."""
+    return 32 if Ws * K <= 512 else 8
 
 
 def _group_kernel(W, Ws, RS, K, P, DM, dtype, E_g=None):
@@ -150,9 +102,8 @@ def _group_kernel(W, Ws, RS, K, P, DM, dtype, E_g=None):
 
 def build_windows(mean, stdv, lsr, i0r, Ws, dtype):
     """Scoring-band data windows [Q1, E, Ws] from per-event levels [E, T]
-    and band anchors i0r [E, Q1].  O(C1*E*Ws) gathers (~1 s at Ws=201 on
-    the bench chip) — built ONCE per scoring call and shared by every
-    (K, D) kernel class (they used to be rebuilt inside every launch)."""
+    and band anchors i0r [E, Q1].  O(C1*E*Ws) gathers — built ONCE per
+    scoring call and shared by every (K, D) kernel class."""
     Tlev = mean.shape[1]
     widx = i0r[:, :, None].astype(jnp.int32) - 1 + jnp.arange(
         Ws, dtype=jnp.int32)[None, None, :]                   # [E, Q1, Ws]
@@ -168,15 +119,16 @@ def build_windows(mean, stdv, lsr, i0r, Ws, dtype):
     return _bw(mean, 0.0), _bw(stdv, 1.0), _bw(lsr, 0.0)
 
 
-def _geom_body(ral, n0, S_e, width: int, C: int):
+def _geom_body(ral, n0, width: int, C: int):
     """Post-backtrace scoring-band geometry ON DEVICE: update_refs
     (cpp/EventData.h:110-169) + band placement + rate limit, vectorized over
     events — so the group kernels can be dispatched WITHOUT the host reading
-    `ral` first (the mid-call D2H sync was ~0.3 s x 15 calls per batch-8 run).
+    `ral` first (no blocking device read between the fills and the scoring
+    launches).
 
-    Bit-matches pack.limited_geometry(event_ref_indexes(...)) up to f32-vs-f64
-    interpolation at exact band-boundary crossings (f32 TPU path only; the
-    f64 oracle-parity path keeps the host geometry)."""
+    Bit-matches pack.limited_geometry(event_ref_indexes(...), open_tail=True)
+    up to f32-vs-f64 interpolation at exact band-boundary crossings (f32 path
+    only; the f64 oracle-parity path keeps the host geometry)."""
     E, T = ral.shape
     idx = jnp.arange(T, dtype=jnp.int32)
     validp = idx[None, :] < n0[:, None]
@@ -221,22 +173,19 @@ def _geom_body(ral, n0, S_e, width: int, C: int):
 
     i0 = jnp.concatenate([jnp.zeros((E, 1), jnp.int32), lo_lim], axis=1)
     i1 = jnp.concatenate([n0[:, None].astype(jnp.int32), hi], axis=1)
-    # the W-rectangle clamp applies to EVERY column incl. the blank col 0
-    # (limited_geometry clamps before padding)
+    # the W-rectangle clamp applies to EVERY column incl. the blank col 0;
+    # columns past S keep their bands (limited_geometry open_tail)
     i1 = jnp.minimum(i1, i0 + 2 * width)
-    cols = jnp.arange(C + 1, dtype=jnp.int32)[None, :]
-    anchor = jnp.take_along_axis(i0, jnp.minimum(S_e, C)[:, None], axis=1)
-    beyond = cols > S_e[:, None]
-    i0 = jnp.where(beyond, anchor, i0)
-    i1 = jnp.where(beyond, 0, i1)
     return i0, i1
 
 
 def _geom_fn(width: int, C: int):
     key = ("geom", width, C)
     if key not in _KERNELS:
-        _KERNELS[key] = jax.jit(
-            lambda ral, n0, S_e: _geom_body(ral, n0, S_e, width, C))
+        def geometry(ral, n0):
+            return _geom_body(ral, n0, width, C)
+
+        _KERNELS[key] = jax.jit(geometry)
     return _KERNELS[key]
 
 
@@ -244,9 +193,10 @@ def _windows_fn(Ws, dtype):
     """Jitted build_windows, cached per (Ws, dtype)."""
     key = ("win", Ws, str(dtype))
     if key not in _KERNELS:
-        _KERNELS[key] = jax.jit(
-            lambda mean, stdv, lsr, i0r: build_windows(
-                mean, stdv, lsr, i0r, Ws, dtype))
+        def windows(mean, stdv, lsr, i0r):
+            return build_windows(mean, stdv, lsr, i0r, Ws, dtype)
+
+        _KERNELS[key] = jax.jit(windows)
     return _KERNELS[key]
 
 
@@ -310,7 +260,7 @@ def _group_kernel_body(W, Ws, RS, K, P, DM, dtype, E_g=None):
     CMIN, CMAX = -span, span                 # copied-col-vs-back join range
     FSMIN, FSMAX = -64, RS + 64 + DMAX       # wide-copy seam offset range
 
-    def kernel(batch, Mf, Sf, Mb, Sb, i0f, i1f, i0r, i1r,
+    def group_kernel(batch, Mf, Sf, Mb, Sb, i0f, i1f, i0r, i1r,
                win_mean, win_stdv, win_lsr, bpf, bpb,
                ev_region, g_start, g_startind, g_S, g_region, g_evoff,
                s_mlen, s_nst, s_win, s_valid, lik_offset):
@@ -501,13 +451,10 @@ def _group_kernel_body(W, Ws, RS, K, P, DM, dtype, E_g=None):
             return jnp.sum(delta, axis=1)
 
         # GB independent groups per scan step (vmapped): amortizes the
-        # per-step fixed costs (gather setup, scan machinery) — with the
-        # event-sliced groups the per-group tensors are small, so wider
-        # blocks pay off for the narrow Refine shapes (Ws~41, K~7) but spill
-        # VMEM on the wide Mutate-round shapes (Ws~201, K 16-46).  Clamped
-        # to the (static) group count: small G buckets and mut-axis shards
-        # can leave G below the configured block (G=16 per shard on a
-        # 2-way 'mut' mesh with the 32-group bucket).
+        # per-step fixed costs (gather setup, scan machinery) over more
+        # groups (_resolve_gb).  Clamped to the (static) group count: small G
+        # buckets and mut-axis shards can leave G below the configured block
+        # (G=16 per shard on a 2-way 'mut' mesh with the 32-group bucket).
         GB = min(_resolve_gb(Ws, K), g_start.shape[0])
         xs = (g_start, g_startind, g_S, g_region, g_evoff, s_mlen, s_nst,
               s_win, s_valid)
@@ -521,12 +468,12 @@ def _group_kernel_body(W, Ws, RS, K, P, DM, dtype, E_g=None):
         _, totals = jax.lax.scan(seg, None, xs_r)
         return totals.reshape(G, -1)
 
-    return kernel
+    return group_kernel
 
 
 def _k_bucket(k: int) -> int:
     # coarse buckets: every (K, P, D, G) combination is a separate compiled
-    # program, and compiles cost minutes on this platform
+    # program
     for b in (7, 16, 46, 160):
         if k <= b:
             return b
@@ -566,9 +513,8 @@ def _mut_buckets(muts_all):
 def _partition_classes(datas, muts_list, participate):
     """Partition each region's mutations into (K, D) compile classes, each
     scored by its own kernel launch.  Kernel cost scales with the K bucket
-    for EVERY group, so one long substitution in a Mutate round otherwise
-    drags the whole call to K=46 (measured +60% on the bench chip for a
-    single 38-base mutation per region); net-indel outliers likewise force
+    for EVERY group, so one long substitution in a Mutate round would
+    otherwise drag the whole call to K=46; net-indel outliers likewise force
     the wide D=32 join spans.
 
     Returns {(K, D): [(muts_subset, original_indexes), ...] per region}."""
@@ -744,7 +690,8 @@ def prepare_group_inputs(sequence, muts, S, S_pad, scoring_width, arrays,
     _build_groups/_pad_groups with per-event S (see score_mutations_multi)."""
     n0 = arrays["n0"]
     Ws = 2 * scoring_width + 1
-    i0r_h, i1r_h = limited_geometry(ref_indexes, n0, S, S_pad, scoring_width)
+    i0r_h, i1r_h = limited_geometry(ref_indexes, n0, S, S_pad, scoring_width,
+                                    open_tail=True)
     i1r_h = np.minimum(i1r_h, i0r_h + (Ws - 1))
 
     K_all, D_all = _mut_buckets(muts)
@@ -754,11 +701,6 @@ def prepare_group_inputs(sequence, muts, S, S_pad, scoring_width, arrays,
                       [np.zeros(G, np.int32)])
     out.update(K=K_all, D=D_all, P=9, i0r=i0r_h, i1r=i1r_h)
     return out
-
-
-def score_mutations_tpu(engine, data: AlignData, muts):
-    """Full ScoreMutations on the TPU engine (single-region form)."""
-    return score_mutations_multi(engine, [data], [muts])[0]
 
 
 def score_mutations_multi(engine, datas, muts_list):
@@ -782,21 +724,8 @@ def score_mutations_multi(engine, datas, muts_list):
     RS = max(p.realign_width - p.scoring_width, 0)
     dtype = engine.dtype
 
-    # decide the serving kernels UP FRONT (shapes + group count are knowable
-    # from params and the mutation list alone): the fused Pallas kernel needs
-    # the uniform-stride batch layout, which only this call's arrays pay for
     classes = _partition_classes(datas, muts_list, participate)
-    G_est = _estimate_groups(muts_list, participate)
-    from .pallas_mutscore import pallas_ok
-
-    pmode = _pallas_mode(engine.dtype, getattr(engine, "mesh", None), G_est)
-    force = pmode in ("force", "interp")
-    use_pallas = pmode is not None and any(
-        pallas_ok(D_c, K_c, 1, Ws, W, force=force)
-        for (K_c, D_c) in classes)
-
-    ctx = engine._prepare_multi(datas, participate=participate,
-                                stride=use_pallas)
+    ctx = engine._prepare_multi(datas, participate=participate)
     batch, arrays, n0 = ctx["batch"], ctx["arrays"], ctx["n0"]
     S_e, C, ev_region = ctx["S_e"], ctx["C"], ctx["ev_region"]
 
@@ -815,7 +744,6 @@ def score_mutations_multi(engine, datas, muts_list):
         fused = FUSED.both_dev(p.realign_width, dtype)
         Mf, Sf, Mb, Sb, bpf, bpb, ral, rlk = fused(
             *fused_args, t_pad=T, max_steps=max_steps)
-    row_of = ctx["row_of"]
 
     def update_events(ral_h):
         """Place backtrace outputs into the events (ref_like deferred)."""
@@ -824,7 +752,7 @@ def score_mutations_multi(engine, datas, muts_list):
         at = 0
         for r, data in enumerate(datas):
             for ev in data.events:
-                e = row_of[at]
+                e = at
                 at += 1
                 if participate[r] and arrays["active"][e]:
                     ev.ref_align = place_full(ev, ral_h[e])
@@ -841,7 +769,7 @@ def score_mutations_multi(engine, datas, muts_list):
     # output (_geom_body) so the group kernels dispatch without a host sync
     # between the dual fill and the scoring launches; `ral` is then read
     # AFTER all launches (the blocking read overlaps kernel execution).
-    use_dev_geom = (mesh is None and dtype is jnp.float32 and not use_pallas
+    use_dev_geom = (mesh is None and dtype is jnp.float32
                     and os.environ.get("PSQ_DEV_GEOM", "1") != "0")
     if not use_dev_geom:
         ral_h = np.asarray(ral, dtype=np.float64)
@@ -856,34 +784,28 @@ def score_mutations_multi(engine, datas, muts_list):
         for r, data in enumerate(datas):
             for ev in data.events:
                 if participate[r]:
-                    post_ris[row_of[at]] = event_ref_indexes(ev)
+                    post_ris[at] = event_ref_indexes(ev)
                 at += 1
 
-    # region event offsets for per-group slicing: uniform stride rows when
-    # strided, else cumulative counts
+    # region event offsets for per-group slicing (regions' rows are
+    # contiguous)
     ev_counts = np.bincount(ev_region[ev_region >= 0], minlength=len(datas))
-    sw = ctx.get("stride")
-    if sw:
-        ev_offs = (np.arange(len(datas)) * sw).astype(np.int32)
-    else:
-        ev_offs = np.concatenate(
-            [[0], np.cumsum(ev_counts)[:-1]]).astype(np.int32)
+    ev_offs = np.concatenate(
+        [[0], np.cumsum(ev_counts)[:-1]]).astype(np.int32)
     max_rev = max([1] + [int(ev_counts[r]) for r in range(len(datas))
                          if participate[r]])
     P = 9
 
     E = len(n0)
-    # 32-granular: measured on the bench chip, E_g=16 (tighter slices at 10X
-    # coverage's ~10 rows/region) ran ~1.5 s/run SLOWER than 32 — the group
-    # kernel is per-group-overhead-bound, not event-row-bound, at this scale
-    E_g = min(round_up(max(max_rev, sw or 1), 32), E)
+    # 32-granular slices: one compiled kernel serves every region size up to
+    # 32 events (10X coverage is ~10-20 rows per region)
+    E_g = min(round_up(max_rev, 32), E)
     if use_dev_geom:
-        i0r_h = i1r_h = None
-        i0r_d, i1r_d = _geom_fn(p.scoring_width, int(C))(
-            ral, batch.n0, jnp.asarray(S_e, jnp.int32))
+        i0r_d, i1r_d = _geom_fn(p.scoring_width, int(C))(ral, batch.n0)
         i1r_d = jnp.minimum(i1r_d, i0r_d + (Ws - 1))
     else:
-        i0r_h, i1r_h = limited_geometry(post_ris, n0, S_e, C, p.scoring_width)
+        i0r_h, i1r_h = limited_geometry(post_ris, n0, S_e, C, p.scoring_width,
+                                        open_tail=True)
         i1r_h = np.minimum(i1r_h, i0r_h + (Ws - 1))
         i0r_d = jnp.asarray(i0r_h)
         i1r_d = jnp.asarray(i1r_h)
@@ -915,31 +837,20 @@ def score_mutations_multi(engine, datas, muts_list):
             gp["g_evoff"][at : at + len(pg)] = pg
             at += len(pg)
 
-        fused_c = use_pallas and pallas_ok(D_c, K_c, sw, Ws, W, force=force)
-        if fused_c:
-            from .pallas_mutscore import score_groups_pallas
-
-            totals_gp = score_groups_pallas(
-                batch, Mf, Sf, Mb, Sb, i0f, i1f, (win_m, win_s, win_l),
-                bpf, bpb, i0r_h, i1r_h,
-                ev_region, gp, arrays, float(p.lik_offset),
-                W, Ws, RS, K_c, P, D_c, sw, interpret=(pmode == "interp"))
+        if mesh is not None:
+            kern = _group_kernel_sharded(mesh, W, Ws, RS, K_c, P, D_c, dtype)
         else:
-            if mesh is not None:
-                kern = _group_kernel_sharded(mesh, W, Ws, RS, K_c, P, D_c,
-                                             dtype)
-            else:
-                kern = _group_kernel(W, Ws, RS, K_c, P, D_c, dtype, E_g=E_g)
-            totals_gp = kern(
-                batch, Mf, Sf, Mb, Sb, i0f, i1f,
-                i0r_d, i1r_d, win_m, win_s, win_l, bpf, bpb, ev_region_d,
-                jnp.asarray(gp["g_start"]), jnp.asarray(gp["g_startind"]),
-                jnp.asarray(gp["g_S"]), jnp.asarray(gp["g_region"]),
-                jnp.asarray(gp["g_evoff"]),
-                jnp.asarray(gp["s_mlen"]), jnp.asarray(gp["s_nst"]),
-                jnp.asarray(gp["s_win"]), jnp.asarray(gp["s_valid"]),
-                float(p.lik_offset),
-            )
+            kern = _group_kernel(W, Ws, RS, K_c, P, D_c, dtype, E_g=E_g)
+        totals_gp = kern(
+            batch, Mf, Sf, Mb, Sb, i0f, i1f,
+            i0r_d, i1r_d, win_m, win_s, win_l, bpf, bpb, ev_region_d,
+            jnp.asarray(gp["g_start"]), jnp.asarray(gp["g_startind"]),
+            jnp.asarray(gp["g_S"]), jnp.asarray(gp["g_region"]),
+            jnp.asarray(gp["g_evoff"]),
+            jnp.asarray(gp["s_mlen"]), jnp.asarray(gp["s_nst"]),
+            jnp.asarray(gp["s_win"]), jnp.asarray(gp["s_valid"]),
+            float(p.lik_offset),
+        )
         launches.append((gp, idx_maps, totals_gp))
 
     if use_dev_geom:

@@ -11,7 +11,6 @@ from __future__ import annotations
 import numpy as np
 
 from ...core.events import Event, update_refs
-from ..types import AlignData
 from .dp import EventBatch
 
 
@@ -53,24 +52,14 @@ def place_full(ev: Event, vals: np.ndarray) -> np.ndarray:
 
 
 def pack_events(events: list[Event], t_pad: int | None = None,
-                e_pad: int | None = None, e_div: int = 1,
-                rows: list[int] | None = None, n_rows: int | None = None):
+                e_pad: int | None = None, e_div: int = 1):
     """Build the EventBatch arrays (numpy; cast to device later) and return
     (batch_arrays dict, ref_indexes list).
 
-    The event axis is padded to at least 64: this TPU's kernels are
-    per-op-overhead-bound at small batch, and measured fill time is FLAT in E
-    up to ~128 (E=60 runs faster in absolute time than E=20), so inactive
-    padding rows are pure win.
-
-    rows/n_rows: optional row placement — event i goes to row rows[i] of an
-    n_rows-row batch (gap rows stay inactive).  The multi-region mutation
-    path places regions at a UNIFORM stride so Pallas event blocks can index
-    a region's rows as block r of size stride."""
-    if rows is None:
-        rows = list(range(len(events)))
-        n_rows = len(events)
-    E_real = int(n_rows)
+    The event axis is padded to at least 64 rows: the fill is a scan whose
+    per-column cost is launch-bound at small batch, so small batches share
+    one compiled program and the inactive padding rows cost little."""
+    E_real = len(events)
     # coarse event-axis buckets: 32-granular up to 128, then 128-granular —
     # every distinct E is a separate compiled program and candidate-chunk
     # batches (engine/multi.py) sweep large, varying row counts.  e_div: the
@@ -80,8 +69,8 @@ def pack_events(events: list[Event], t_pad: int | None = None,
     E = round_up(E, max(e_div, 1))
     trims = [trim_range(ev) for ev in events]
     n0 = np.ones(E, dtype=np.int32)
-    for ev_i, r in enumerate(rows):
-        n0[r] = trims[ev_i][1] - trims[ev_i][0]
+    for e, (lo, hi) in enumerate(trims):
+        n0[e] = hi - lo
     T = t_pad or round_up(int(n0.max()), 256)
 
     mean = np.zeros((E, T))
@@ -98,10 +87,9 @@ def pack_events(events: list[Event], t_pad: int | None = None,
     lik4 = np.zeros((E, 4))
 
     ref_indexes = [np.zeros(0, dtype=np.float64)] * E
-    for ev_i, ev in enumerate(events):
-        e = rows[ev_i]
+    for e, ev in enumerate(events):
         n = n0[e]
-        lo, hi = trims[ev_i]
+        lo, hi = trims[e]
         mean[e, :n] = ev.mean[lo:hi]
         stdv[e, :n] = ev.stdv[lo:hi]
         lsd[e, :n] = np.log(ev.stdv[lo:hi])
@@ -173,7 +161,7 @@ def fill_inputs(arrays: dict, ref_indexes, S: int, S_pad: int, width: int):
     reference's backward band mirrors to exactly the forward band in forward
     coordinates (see dp.py module doc).  The rate limit (band start advances
     by at most DMAX per column) turns all cross-column data movement into
-    static rolls — general gathers are ~25x slower on TPU.  When the cap
+    selects over static rolls instead of per-row gathers.  When the cap
     binds (needs >DMAX event levels mapped to one reference base) the band
     lags the reference's placement by a few columns and catches up; the
     half-width dwarfs the lag."""
@@ -237,21 +225,26 @@ def fill_inputs(arrays: dict, ref_indexes, S: int, S_pad: int, width: int):
 
 
 def limited_geometry(ref_indexes, n0: np.ndarray, S, S_pad: int,
-                     width: int):
+                     width: int, open_tail: bool = False):
     """Rate-limited band geometry padded to S_pad (+1 cols incl. blank):
     starts advance by at most DMAX per column, tops re-clipped to the
     rectangle, padding columns frozen at the col-S anchor with empty bands.
 
     S may be an int (all events share one sequence) or an [E] array of
     per-event sequence lengths-in-states (multi-region batches): each event's
-    geometry freezes at its own column S_e."""
+    geometry freezes at its own column S_e.
+
+    open_tail=True (the mutation-scoring geometry) places bands in the
+    columns past S as in any other column instead: a mutation that
+    lengthens the sequence refills columns past the original S, and the
+    reference places their bands from the same ref_index."""
     from .dp import DMAX
 
     E = len(n0)
     W = 2 * width + 1
     S_e = (np.full(E, S, dtype=np.int64) if np.isscalar(S)
            else np.asarray(S, dtype=np.int64))
-    S_max = int(S_e.max()) if E else 0
+    S_max = S_pad if open_tail else (int(S_e.max()) if E else 0)
     i0, i1 = band_geometry(ref_indexes, n0, S_max, width, backward=False)
     # rate limit from the SECOND column on: column 1 anchors wherever its
     # band belongs (the data window starts there, dp.make_fill wa0), so a
@@ -261,6 +254,8 @@ def limited_geometry(ref_indexes, n0: np.ndarray, S, S_pad: int,
     for j in range(2, S_max + 1):
         np.minimum(i0[:, j], i0[:, j - 1] + DMAX, out=i0[:, j])
     i1 = np.minimum(i1, i0 + (W - 1))
+    if open_tail:
+        return i0.astype(np.int32), i1.astype(np.int32)
 
     i0p = np.zeros((E, S_pad + 1), dtype=np.int32)
     i1p = np.zeros((E, S_pad + 1), dtype=np.int32)

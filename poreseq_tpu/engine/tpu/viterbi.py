@@ -1,4 +1,4 @@
-"""TPU 1024-state Viterbi candidate generator.
+"""Device 1024-state Viterbi candidate generator.
 
 Device design (spec: /root/reference/cpp/Viterbi.cpp:239-426): the per-position
 transition max over 1/2/3-base steps decomposes into reshaped maxes of the
@@ -6,8 +6,8 @@ transition max over 1/2/3-base steps decomposes into reshaped maxes of the
 so each position costs O(1024) vector work instead of 1024^2.
 
 The stochastic backtrace uses JAX PRNG (counted, reproducible) rather than
-glibc rand(); candidate sequences therefore differ from the reference in TPU
-mode — scores still decide acceptance.  Exact-parity runs use the exact
+glibc rand(); candidate sequences therefore differ from the reference on the
+device engine — scores still decide acceptance.  Exact-parity runs use the exact
 backend's native Viterbi.
 
 Observation packing: per-position level/stdv means are vectorized segment

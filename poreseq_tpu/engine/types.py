@@ -1,4 +1,4 @@
-"""Shared engine-level value types (both exact/CPU and TPU backends)."""
+"""Shared engine-level value types (both exact/CPU and device backends)."""
 
 from __future__ import annotations
 

@@ -18,9 +18,20 @@ from ..core.events import Event, Model
 _GRP = "/Analyses/Basecall_2D_000"
 
 
+def _h5py():
+    """The HDF5 reader every fast5 read and write goes through."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(
+            "fast5 files are HDF5: reading or writing them needs the h5py "
+            "package, which is not installed") from e
+    return h5py
+
+
 def load_event(filename: str, typ: str) -> Event:
     """Load one strand ('t' or 'c') of a read (EventData.py:100-175)."""
-    import h5py
+    h5py = _h5py()
 
     loc = "complement" if typ[0] == "c" else "template"
     with h5py.File(filename, "r") as f:
@@ -117,7 +128,7 @@ def load_events(filenames: list[str]) -> list[Event]:
 
 def get_fasta(filename: str) -> str:
     """2D basecall from one fast5 (extract_fasta.py:7-17)."""
-    import h5py
+    h5py = _h5py()
 
     with h5py.File(filename, "r") as f:
         seqdata = f[f"{_GRP}/BaseCalled_2D/Fastq"][()]
@@ -137,7 +148,7 @@ def write_fast5(
     level_mean, level_stdv, sd_mean, sd_stdv, align_inds, align_kmers)}.
     Calibration attrs are written as identity (shift 0, scale 1, ...) since
     the synthetic levels are already in model space."""
-    import h5py
+    h5py = _h5py()
 
     with h5py.File(filename, "w") as f:
         g2d = f.create_group(f"{_GRP}/BaseCalled_2D")

@@ -51,7 +51,7 @@ def _set_trim_hint(ev, reginfo: RegionInfo, params: dict) -> None:
     A read overhanging a short region carries thousands of levels that can
     never fall inside any banded-DP column (the band centers on the
     interpolated alignment, half-width realign_width — Alignment.cpp:127-148)
-    — they pad the TPU batch time axis for nothing.  Levels outside every
+    — they pad the device batch time axis for nothing.  Levels outside every
     band are never visited and stay unaligned either way, so slicing them is
     exact-equivalent; the slack absorbs band drift across realign rounds.
     PSQ_TRIM_EVENTS=0 disables."""
@@ -135,6 +135,8 @@ def events_from_bam(eventdir: str, bamfile: str, reginfo: RegionInfo, params: di
                 ev.mapaligns(aps)
                 _set_trim_hint(ev, reginfo, params)
                 events.append(ev)
+            except ImportError:
+                raise   # no HDF5 reader: every read would fail the same way
             except Exception as e:
                 print(str(e), file=sys.stderr)
 

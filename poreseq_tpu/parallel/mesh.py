@@ -1,6 +1,6 @@
 """Multi-chip scaling: device mesh over (event, mutation-group) axes.
 
-The reference's parallelism inventory (SURVEY.md 2.2) maps onto TPU as:
+The reference's parallelism inventory (SURVEY.md 2.2) maps onto a device mesh as:
   * 'ev'  axis — data parallelism over event strands (the reference's
     "different events simultaneously", MakeMutations.cpp:20-22);
   * 'mut' axis — parallelism over candidate mutation groups (independent per
@@ -23,20 +23,12 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:
-    from jax import shard_map as _shard_map
 
-    def shard_map(f, mesh, in_specs, out_specs):
-        # check_vma off: scan carries are zero-initialized inside the mapped
-        # function, which the varying-axis checker would otherwise reject
-        return _shard_map(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
-                          check_vma=False)
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map as _shard_map_legacy
-
-    def shard_map(f, mesh, in_specs, out_specs):
-        return _shard_map_legacy(f, mesh=mesh, in_specs=in_specs,
-                                 out_specs=out_specs, check_rep=False)
+def shard_map(f, mesh, in_specs, out_specs):
+    # check_vma off: scan carries are zero-initialized inside the mapped
+    # function, which the varying-axis checker would otherwise reject
+    return jax.shard_map(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
+                         check_vma=False)
 
 
 def make_mesh(n_ev: int | None = None, n_mut: int = 1, devices=None) -> Mesh:

@@ -155,7 +155,7 @@ def mutate_many(
     serves every region (engine/multi.py), the host control flow per region
     is identical to mutate().  Returns [(sequence, accuracy)] per region.
 
-    This is the TPU replacement for the reference's one-job-per-region
+    This is the device-engine replacement for the reference's one-job-per-region
     cluster splitting (split_fasta.py, README.md:48-62).
 
     loaded: optional pre-loaded [(pa | None, error | None)] from load_many
@@ -318,7 +318,7 @@ def train_candidates(
     verbose: int = 1,
 ):
     """One training iteration's parameter candidates (Params.py:31-57) run as
-    ONE lockstep batch: the TPU-native replacement for the reference's
+    ONE lockstep batch: the device-engine replacement for the reference's
     `multiprocessing.Pool(threads).map(trainhelper)` (cmdline.py:258-259).
 
     The candidates differ only in the `*_t`/`*_c` emission/transition

@@ -1,7 +1,6 @@
 """1 -> N process scaling efficiency of the jax.distributed CLI path.
 
-BASELINE.md demands >=80% scaling efficiency from 1 to 2 hosts.  Real
-multi-host TPU hardware is not reachable from this environment, so this
+BASELINE.md demands >=80% scaling efficiency from 1 to 2 hosts.  This
 harness measures the closest available proxy: N coordinated jax.distributed
 CPU processes (the exact code path a multi-host run takes — coordinator
 init, round-robin region shard, per-process output shard) on a shared-nothing

@@ -1,7 +1,7 @@
 """Multi-host execution: jax.distributed-coordinated CLI runs.
 
 The reference's cluster mode is manual .region-file splitting across jobs
-(/root/reference/README.md:48-62).  The TPU-era equivalent initializes
+(/root/reference/README.md:48-62).  This repo's equivalent initializes
 jax.distributed from --coordinator/--num-processes/--process-id, deals
 regions round-robin across processes, and writes per-process OUTPUT.pN
 shards (poreseq_tpu/cli.py, parallel/distributed.py).  This test runs a REAL
@@ -95,7 +95,7 @@ def test_two_process_distributed_matches_single(run, tmp_path):
 @pytest.mark.slow
 def test_two_process_distributed_tpu_engine(run, tmp_path):
     """The coordinator + TpuEngine combination (the production multi-host
-    configuration): 2 jax.distributed processes each running the TPU engine
+    configuration): 2 jax.distributed processes each running the device engine
     path on their local CPU device must shard and union exactly like the
     exact-backend run."""
     from poreseq_tpu import cli

@@ -1,4 +1,4 @@
-"""f32 whole-pipeline DECISION equivalence: the TPU backend (f32, the dtype
+"""f32 whole-pipeline DECISION equivalence: the device backend (f32, the dtype
 used on hardware) must reproduce the exact backend's consensus sequence at
 every phase of the pipeline when both see the same candidate proposals.
 

@@ -2,7 +2,7 @@
 
 Fixtures in tests/golden/ were produced by tools/golden/oracle.cpp driving the
 *reference* implementation.  Every comparison here is exact f64 equality —
-the exact backend is the oracle the TPU backend is then validated against.
+the exact backend is the oracle the device backend is then validated against.
 """
 
 import numpy as np

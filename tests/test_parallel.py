@@ -12,8 +12,8 @@ needs_devices = pytest.mark.skipif(
 
 
 @needs_devices
-@pytest.mark.slow   # ~6 min; the driver exercises dryrun_multichip(8)
-                    # separately every round (MULTICHIP_rN)
+@pytest.mark.slow   # ~6 min; `python __graft_entry__.py` runs the same
+                    # dry run
 def test_dryrun_multichip_8():
     import sys
 
@@ -29,7 +29,7 @@ def test_dryrun_multichip_8():
 def test_engine_mesh_consensus_matches_single_device(seed):
     """Full consensus (Mutate + viterbi candidates + Refine) through the
     PRODUCTION TpuEngine with a 4x2 mesh must reproduce the single-device
-    engine's final sequence (same Pallas/XLA fill per shard; psum'd mutation
+    engine's final sequence (same XLA fill per shard; psum'd mutation
     totals)."""
     import jax.numpy as jnp
 

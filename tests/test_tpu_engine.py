@@ -1,7 +1,7 @@
-"""TPU engine vs exact oracle (CPU, virtual devices).
+"""Device engine vs exact oracle (CPU, virtual devices).
 
-f64 mode must agree with the exact engine to ~1e-9; f32 (the on-TPU dtype)
-must agree on every accept/reject decision on representative data.
+f64 mode must agree with the exact engine to ~1e-9; f32 (the production
+dtype) must agree on every accept/reject decision on representative data.
 """
 
 import numpy as np
@@ -70,6 +70,30 @@ def test_score_mutations_f64_matches_exact(x64):
     pa, _ = _session(seed=11, draft_error=0.04)
     dE, dT = AlignData.from_session(pa), AlignData.from_session(pa)
     muts = _rand_muts(rng, pa.sequence, 25)
+    sE = np.array([m.score for m in ExactEngine().score_mutations(dE, muts)])
+    sT = np.array(
+        [m.score for m in TpuEngine(dtype=jnp.float64).score_mutations(dT, muts)]
+    )
+    np.testing.assert_allclose(sE, sT, rtol=0, atol=1e-8)
+
+
+def test_score_mutations_f64_at_sequence_end(x64):
+    """Mutations in the last bases refill columns past the original sequence
+    end when they lengthen it; the device scoring band must be placed there
+    as the oracle places it (limited_geometry open_tail)."""
+    from poreseq_tpu.engine.tpu import TpuEngine
+
+    pa, _ = _session(seed=7, ref_len=250, coverage=5, draft_error=0.03,
+                     params=dict(realign_width=60, scoring_width=20))
+    seq = pa.sequence
+    muts = []
+    for start in range(len(seq) - 7, len(seq) + 1):
+        for orig, mut in (("", "T"), ("", "GA"), (seq[start:start + 1], ""),
+                          (seq[start:start + 1], "C")):
+            mi = MutationInfo()
+            mi.start, mi.orig, mi.mut = start, orig, mut
+            muts.append(mi)
+    dE, dT = AlignData.from_session(pa), AlignData.from_session(pa)
     sE = np.array([m.score for m in ExactEngine().score_mutations(dE, muts)])
     sT = np.array(
         [m.score for m in TpuEngine(dtype=jnp.float64).score_mutations(dT, muts)]

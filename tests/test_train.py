@@ -1,4 +1,4 @@
-"""Training paths: the TPU lockstep candidate batch must reproduce the
+"""Training paths: the device lockstep candidate batch must reproduce the
 reference's pool-of-sequential-consensus semantics (cmdline.py:235-267) —
 each parameter candidate's result equals running mutate() on it alone."""
 

@@ -1,8 +1,8 @@
 """Event trimming (band-reachable level range) + first-column band anchoring.
 
-Reads overhanging a short region carry levels no band can reach; the TPU
+Reads overhanging a short region carry levels no band can reach; the device
 pack slices them (Event.trim, set at load).  Checks:
-  * the TPU engine matches the exact oracle on an overhang scenario in f64
+  * the device engine matches the exact oracle on an overhang scenario in f64
     (this also exercises the first-column window anchor — without it the
     band spends hundreds of columns catching up from level 0);
   * trim on/off produce identical f64 results (exact equivalence of the
